@@ -1,6 +1,6 @@
 """On-device consensus reduction vs the host reference implementation.
 
-ops/device_consensus.py is the TPU-native analog of the host sort+reduce
+ops/device_consensus.py is the device analog of the host sort+reduce
 consensus (pileup/consensus.py, itself parity-pinned to
 native/rowpile.cpp): one jitted lax.sort + segment_* program.  These
 tests pin it row-for-row on random tables (all rule variants) and on the

@@ -1,5 +1,6 @@
 """Golden-output regression: the full CLI VCF body for a fixed dataset is
-pinned to a committed snapshot, catching unintended behavior drift.
+pinned to a committed snapshot, catching unintended behavior drift.  The
+workloads live in uvc_tpu/io/goldens.py, shared with chip_smoke.py.
 
 Regenerate after INTENTIONAL behavior changes with:
     UPDATE_GOLDEN=1 python -m pytest tests/test_golden.py -q
@@ -9,9 +10,9 @@ import os
 import subprocess
 import sys
 
-from uvc_tpu.io import simulate, bgzf
+from uvc_tpu.io import bgzf, goldens
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_small.vcf")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _body(text):
@@ -19,102 +20,45 @@ def _body(text):
     return [l for l in text.splitlines() if not l.startswith("##")]
 
 
-def test_golden_vcf_body(tmp_path):
-    ref = simulate.random_ref(6000, 42)
-    variants = [
-        simulate.Variant(1000, f"{ref[1000]}>" + ("A" if ref[1000] != "A" else "G"), 0.3),
-        simulate.Variant(2500, "+CT", 0.3),
-        simulate.Variant(4200, "-2", 0.3),
-    ]
-    bam_path = str(tmp_path / "g.bam")
-    simulate.build_bam(bam_path, ref, depth=100, variants=variants, seed=1234)
-    fa = str(tmp_path / "ref.fa")
-    open(fa, "w").write(">chr1\n" + ref + "\n")
-    out = str(tmp_path / "g.vcf.gz")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.path.dirname(os.path.dirname(
-                   os.path.abspath(__file__))))
-    subprocess.run([sys.executable, "-m", "uvc_tpu.cli.uvc1", "-f", fa,
-                    "-o", out, "-t", "1", bam_path], check=True, env=env,
-                   capture_output=True)
-    body = _body(bgzf.decompress(open(out, "rb").read()).decode())
-    if os.environ.get("UPDATE_GOLDEN"):
-        os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-        open(GOLDEN, "w").write("\n".join(body) + "\n")
-    assert os.path.exists(GOLDEN), "golden file missing; run with UPDATE_GOLDEN=1"
-    expect = open(GOLDEN).read().splitlines()
-    assert body == expect
-
-
-def _run_cli(args, out):
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.path.dirname(os.path.dirname(
-                   os.path.abspath(__file__))))
-    subprocess.run([sys.executable, "-m", "uvc_tpu.cli.uvc1", *args,
-                    "-o", out], check=True, env=env, capture_output=True)
-
-
 def _golden_check(name, body):
-    path = os.path.join(os.path.dirname(__file__), "data", name)
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        goldens.GOLDEN_FILES[name])
     if os.environ.get("UPDATE_GOLDEN"):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         open(path, "w").write("\n".join(body) + "\n")
-    assert os.path.exists(path), f"{name} missing; run with UPDATE_GOLDEN=1"
+    assert os.path.exists(path), f"{path} missing; run with UPDATE_GOLDEN=1"
     assert body == open(path).read().splitlines()
+
+
+def _run_golden(tmp_path, name):
+    argv, out = goldens.build(name, str(tmp_path))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-m", *argv], check=True, env=env,
+                   capture_output=True)
+    _golden_check(name, _body(bgzf.decompress(open(out, "rb").read())
+                              .decode()))
+
+
+def test_golden_vcf_body(tmp_path):
+    _run_golden(tmp_path, "small")
 
 
 def test_golden_umi_duplex(tmp_path):
     """Pinned VCF body for a duplex-UMI dataset (cDP2/SSCS/duplex tiers)."""
-    ref = simulate.random_ref(4000, 91)
-    variants = [simulate.Variant(1200, f"{ref[1200]}>"
-                                 + ("A" if ref[1200] != "A" else "G"), 0.4),
-                simulate.Variant(2800, "+TG", 0.4)]
-    bam_path = str(tmp_path / "ud.bam")
-    simulate.build_bam(bam_path, ref, depth=160, variants=variants,
-                       seed=77, umi=True, duplex=True, n_umi_families=60)
-    fa = str(tmp_path / "ref.fa")
-    open(fa, "w").write(">chr1\n" + ref + "\n")
-    out = str(tmp_path / "ud.vcf.gz")
-    _run_cli(["-f", fa, "-t", "1", bam_path], out)
-    _golden_check("golden_umi_duplex.vcf",
-                  _body(bgzf.decompress(open(out, "rb").read()).decode()))
+    _run_golden(tmp_path, "umi_duplex")
 
 
 def test_golden_iontorrent(tmp_path):
     """Pinned VCF body with the IonTorrent (TIsProton) branches forced."""
-    ref = simulate.random_ref(4000, 92)
-    variants = [simulate.Variant(1500, f"{ref[1500]}>"
-                                 + ("C" if ref[1500] != "C" else "T"), 0.35),
-                simulate.Variant(2600, "-2", 0.35)]
-    bam_path = str(tmp_path / "it.bam")
-    simulate.build_bam(bam_path, ref, depth=120, variants=variants, seed=78)
-    fa = str(tmp_path / "ref.fa")
-    open(fa, "w").write(">chr1\n" + ref + "\n")
-    out = str(tmp_path / "it.vcf.gz")
-    _run_cli(["-f", fa, "-t", "1", bam_path,
-              "--sequencing-platform", "2"], out)
-    _golden_check("golden_iontorrent.vcf",
-                  _body(bgzf.decompress(open(out, "rb").read()).decode()))
+    _run_golden(tmp_path, "iontorrent")
 
 
 def test_golden_tumor_normal(tmp_path):
     """Pinned VCF body for the tumor-normal joint mode (uvctn driver)."""
     from uvc_tpu.cli import uvctn
-    ref = simulate.random_ref(4000, 93)
-    tvars = [simulate.Variant(1100, f"{ref[1100]}>"
-                              + ("A" if ref[1100] != "A" else "C"), 0.3),
-             simulate.Variant(2400, f"{ref[2400]}>"
-                              + ("G" if ref[2400] != "G" else "T"), 0.5)]
-    nvars = [tvars[1]]   # germline
-    fa = str(tmp_path / "ref.fa")
-    open(fa, "w").write(">chr1\n" + ref + "\n")
-    simulate.build_bam(str(tmp_path / "t.bam"), ref, depth=140,
-                       variants=tvars, seed=81)
-    simulate.build_bam(str(tmp_path / "n.bam"), ref, depth=140,
-                       variants=nvars, seed=82)
-    rc = uvctn.run([fa, str(tmp_path / "t.bam"), str(tmp_path / "n.bam"),
-                    str(tmp_path / "o"), "TS,NS"])
+    argv, out = goldens.build("tumor_normal", str(tmp_path))
+    assert argv[0] == "uvc_tpu.cli.uvctn"
+    rc = uvctn.run(argv[1:])
     assert rc == 0 or rc is None
-    body = _body(bgzf.decompress(
-        open(str(tmp_path / "o.normal.vcf.gz"), "rb").read()).decode())
-    _golden_check("golden_tn.vcf", body)
+    _golden_check("tumor_normal",
+                  _body(bgzf.decompress(open(out, "rb").read()).decode()))

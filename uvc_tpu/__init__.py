@@ -1,12 +1,12 @@
-"""uvc_tpu: a TPU-native somatic variant-calling engine.
+"""uvc_tpu: a JAX somatic variant-calling engine for one NVIDIA GPU.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of genetronhealth/uvc
+A from-scratch JAX/XLA rebuild of the capabilities of genetronhealth/uvc
 (reference surveyed in SURVEY.md): tumor-only and tumor-normal small-variant
 calling from BAM with UMI/duplex molecular-barcode consensus, the
 power-law/binomial/Bayes-factor "universality" quality model, and bgzipped VCF
 output.
 
-Architecture (TPU-first, not a port):
+Architecture (not a port):
   - io/        BAM/FASTA/VCF codecs (native C++ BGZF+BAM decoder behind ctypes,
                pure-python fallback) producing columnar numpy read blocks
   - schedule/  memory-bounded region planner (tier-1/2/3 batching)

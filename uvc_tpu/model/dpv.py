@@ -22,7 +22,7 @@ from ..constants import Symbol, NUM_SYMBOLS, SequencingPlatform
 # The whole DPv battery is pure [P,14] elementwise tensor math, so it is
 # written in jax.numpy and traced into ONE jitted program together with
 # calc_qual (see calling.model_stage): float64 on CPU (x64 enabled -> bit
-# comparable with the reference math), float32/int32 on TPU where the same
+# comparable with the reference math), float32/int32 on GPU where the same
 # program is the production model stage.
 np = jnp  # module-wide alias: every op below traces
 

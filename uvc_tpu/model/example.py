@@ -39,3 +39,18 @@ def example_model_payload(n_pos=2048, depth=100, seed=0, cfg=None,
     arrays = {k: calling._pad0(F[k], B) for k in calling.MODEL_READ_PLANES}
     cand = calling._pad0(np.asarray(ctx["cand"]), B)
     return arrays, cand, cfg
+
+
+def example_packed_request(rows=65536):
+    """(packed, cfg): one packed tumor-only request
+    (calling.pack_model_request) of ``rows`` distinct positions of one
+    simulated 100x region, as the device checks and the bench evaluate
+    it.  The config is --should-output-all, so every (position, symbol)
+    is a candidate and every row is one the records read."""
+    cfg = UVCConfig()
+    cfg.should_output_all = True
+    arrays, cand, cfg = example_model_payload(n_pos=rows, seed=2, cfg=cfg,
+                                              pad_to=rows)
+    packed = calling.pack_model_request((arrays, cand, None, None, True,
+                                         False))
+    return packed, cfg

@@ -6,7 +6,7 @@ main.hpp:3745-4251): lowercase arrays are per-allele, capitalized arrays
 are the symboltype sums broadcast back to [P,14], and *_nn arrays carry the
 ambiguous-symbol (BASE_NN/LINK_NN) values.
 
-The reference fills these per emitted candidate; the TPU-first design
+The reference fills these per emitted candidate; this design
 computes them densely for every (pos, symbol) so the downstream quality
 model is pure elementwise tensor math.
 """

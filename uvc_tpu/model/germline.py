@@ -54,7 +54,9 @@ def germline_nlodq(F, cand, cfg, is_tumor_only=True):
     alt1/alt2 per-allele metrics needed by the TN join and ranking."""
     P = F["P"]
     refsym = F["ref_syms"]
-    gvq = np.where(cand, F["gVQ1"], np.iinfo(np.int64).min)
+    # int64 before the int64-min sentinel: an f32 device returns gVQ1 as
+    # int32, where the sentinel would wrap to 0 and read as present
+    gvq = np.where(cand, F["gVQ1"].astype(np.int64), np.iinfo(np.int64).min)
     contq = F["CONTQ"]
     adnorm = F["cDP1v"] / 100.0
 

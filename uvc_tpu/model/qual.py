@@ -19,7 +19,7 @@ from .dpv import (IS_SUBST, IS_INS, IS_DEL, numstates2phred, phred2nat,
 from . import sscs as sscs_mod
 
 # traced together with dpv.calc_dpv into the one jitted model program
-# (see calling.model_stage); float64 on CPU (x64), float32/int32 on TPU
+# (see calling.model_stage); float64 on CPU (x64), float32/int32 on GPU
 np = jnp
 
 NS = NUM_SYMBOLS

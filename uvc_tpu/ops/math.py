@@ -12,7 +12,7 @@ Behavioral references (formulas, not code):
   - softplus floor (calc_non_negative):/root/reference/main_conversion.hpp:163-171
 
 All kernels compute in the dtype of their (floating) inputs; tests run them in
-float64 on CPU to check golden values, the TPU path runs float32.
+float64 on CPU to check golden values, the GPU path runs float32.
 """
 
 import math

@@ -4,7 +4,7 @@ Replaces the reference's share-nothing GNU-parallel/qsub per-chromosome
 scale-out with filesystem hand-off (bin/uvcTN.sh, SURVEY.md §2): each host
 owns a static partition of the region plans (deterministic global order),
 calls its shard, bgzf-compresses its records locally, and host 0 gathers
-the independently-compressed BGZF blocks over the ICI/DCN collective and
+the independently-compressed BGZF blocks over a JAX collective and
 concatenates them raw — valid because BGZF members are independently
 decompressible (tested in test_io.test_bgzf_block_concat_property).
 
@@ -13,6 +13,10 @@ fetch over-reads MAX_INSERT_SIZE and analysis windows extend
 MAX_STR_N_BASES (the reference's tiling rules, grouping.cpp:664,730,
 main.cpp:529-530), so families and STR context never straddle an ownership
 boundary unseen.
+
+One process per host, each owning its local cards (calling's row sharding
+spreads its requests over them).  This mode is tested with CPU processes
+only; it has not run on GPUs.
 """
 
 import os
@@ -51,7 +55,7 @@ def my_plans(plans, process_id=None, process_count=None):
 
 def allgather_bytes(blob: bytes, max_len: int = None):
     """Gather one byte blob from every process; returns list of blobs in
-    process order. Rides the JAX collective (ICI/DCN); single-host returns
+    process order. Rides a JAX collective; single-host returns
     [blob]."""
     if jax.process_count() == 1:
         return [blob]

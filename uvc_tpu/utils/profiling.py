@@ -1,8 +1,8 @@
 """Profiling hooks (SURVEY.md §5: the reference prints wall/CPU time at
-exit, main.cpp:1221-1222,1593-1600; the TPU build additionally exposes
+exit, main.cpp:1221-1222,1593-1600; this build additionally exposes
 JAX profiler traces for the device stages).
 
-Set UVC_TPU_JAX_TRACE_DIR=/some/dir to capture an XLA/TPU trace
+Set UVC_TPU_JAX_TRACE_DIR=/some/dir to capture a JAX profiler trace
 (viewable in TensorBoard / Perfetto) around any code wrapped in
 ``maybe_trace``; without the env var the context manager is a no-op so
 the hot path pays nothing.
